@@ -1,9 +1,9 @@
-"""rsparse_tpu: TPU-native sparse matrix factorization & candidate retrieval.
+"""rsparse_tpu: sparse matrix factorization & candidate retrieval in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 ``rsparse`` R package (statistical learning on sparse matrices): WRMF/iALS,
 Linear-Flow, soft-SVD / soft-impute, PureSVD, GloVe, RankMF, factorization
-machines, FTRL, top-k retrieval, and ranking metrics — batched onto the MXU
+machines, FTRL, top-k retrieval, and ranking metrics — batched onto the matrix units
 and sharded over device meshes instead of OpenMP threads.
 """
 

@@ -120,6 +120,8 @@ def main(argv=None) -> int:
     r.set_defaults(fn=_recommend)
 
     args = p.parse_args(argv)
+    from .config import use_compile_cache
+    use_compile_cache()
     return args.fn(args)
 
 

@@ -2,9 +2,9 @@
 
 The reference package carries a precision axis ("double" vs "float" via the R
 `float` package, reference R/model_WRMF.R:68-70,102) and a global OpenMP
-thread-count option (reference R/zzz.R:25-44).  On TPU the analog is a dtype
-axis (float32 default, bfloat16 for HBM-bound workloads, float64 available on
-CPU meshes) and JAX device/mesh discovery instead of thread counts.
+thread-count option (reference R/zzz.R:25-44).  Here the analog is a dtype
+axis (float32 default, bfloat16 for bandwidth-bound workloads, float64) and
+JAX device/mesh discovery instead of thread counts.
 """
 
 from __future__ import annotations
@@ -40,9 +40,9 @@ _PRECISIONS = {
 def resolve_dtype(precision: Union[str, jnp.dtype]) -> jnp.dtype:
     """Resolve a precision name or dtype to a jnp dtype.
 
-    Requesting float64 enables JAX x64 mode (CPU meshes only; TPU has no
-    native f64 path — use "float" there, which is already the 2x-faster
-    option the reference recommends, R/model_WRMF.R:68-70).
+    Requesting float64 enables JAX x64 mode.  GPUs and CPUs run float64
+    natively; "float" stays the faster option the reference recommends
+    (R/model_WRMF.R:68-70).
     """
     if isinstance(precision, str):
         try:
@@ -67,6 +67,22 @@ def default_device_count() -> int:
     """Number of local accelerator devices (replaces OpenMP thread detection,
     reference src/utils.cpp:84-91)."""
     return jax.local_device_count()
+
+
+def use_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at a fixed directory.
+
+    When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and
+    nothing is changed; otherwise the cache lives in ``.jax_cache`` at the
+    root of this checkout (a fixed path: the path is part of the cache key).
+    Returns the directory in use."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def np_dtype(dtype) -> np.dtype:

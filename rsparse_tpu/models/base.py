@@ -96,13 +96,11 @@ class MatrixFactorizationRecommender:
         if mesh is not None and "data" in getattr(mesh, "axis_names", ()):
             # mesh-fitted model: item axis sharded over the mesh, packed
             # bitmasks sharded by item range, O(k) candidate merge
-            # (parallel/topk_sharded.py).  Crossover basis (r4, v5e): the
-            # sharded kernel scores 23G item-scores/s per shard device vs
-            # 29-34G for the single-device kernel — the ~20-30% merge
-            # overhead is repaid from 2 devices up, so any real mesh
-            # (>= 2 devices) routes sharded.  Very large k can exceed the
-            # per-shard candidate budget — fall back to the single-device
-            # kernel there rather than failing a recall@k evaluation.
+            # (parallel/topk_sharded.py).  Any mesh routes sharded (the
+            # crossover against the single-device kernel is not measured
+            # on the H100).  Very large k can exceed the per-shard
+            # candidate budget — fall back to the single-device kernel
+            # there rather than failing a recall@k evaluation.
             import jax
             n_dev = mesh.shape["data"]
             n_items_ = np.asarray(self.components).shape[1]

@@ -1,8 +1,8 @@
 """k-means (internal helper, reference R/kmeans.R:2-25 over
 src/kmeans.cpp:10-17's ``arma::kmeans`` wrapper).
 
-Lloyd's algorithm as a jitted lax loop on the MXU: the assignment step is
-one dense distance matmul per iteration.  Seed modes mirror arma's:
+Lloyd's algorithm as a jitted lax loop of matrix products: the assignment
+step is one dense distance matmul per iteration.  Seed modes mirror arma's:
 ``static_subset``/``random_subset`` (centroids from data rows) and
 ``static_spread``/``random_spread`` (k-means++-style spread).
 """

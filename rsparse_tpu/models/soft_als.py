@@ -1,6 +1,6 @@
 """Soft-SVD / Soft-Impute via fast alternating least squares (Hastie et al.).
 
-TPU-native re-design of the reference SoftALS core (R/SoftALS.R:107-245):
+Re-design of the reference SoftALS core (R/SoftALS.R:107-245):
 the per-iteration B-step/A-step become jitted dense pipelines — sparse
 products ride the bucketed-gather SpMM (ops/spmm.py), tall-skinny SVDs are
 ``crossprod + eigh`` on rank x rank matrices (R/SoftALS.R:250-257), and the

@@ -1,17 +1,17 @@
-"""WRMF: Weighted Regularized Matrix Factorization (iALS) on TPU.
+"""WRMF: Weighted Regularized Matrix Factorization (iALS).
 
-TPU-native re-design of the reference WRMF model (R/model_WRMF.R:35-454 over
+Re-design of the reference WRMF model (R/model_WRMF.R:35-454 over
 inst/include/wrmf_implicit.hpp / wrmf_explicit.hpp).  Capabilities match the
 reference: implicit (Hu/Koren/Volinsky) and explicit feedback, three solvers
 (cholesky / conjugate_gradient / nnls — the latter yields NNMF), static or
 dynamic lambda, user/item/global biases, a user-supplied confidence
 ``preprocess`` hook, warm-start ``init``, and a precision axis
-(float32 default, bfloat16, float64 on CPU meshes).
+(float32 default, bfloat16, float64).
 
 Architecture: interactions are bucketed into padded (B, L) row blocks
 (sparse/device.py); each ALS half-sweep is a single jitted program that
-gathers source factors, builds batched normal equations on the MXU and
-scatters solved rows back (ops/als.py).  The alternating item/user sweeps
+gathers source factors, builds batched normal equations as matrix products
+and scatters solved rows back (ops/als.py).  The alternating item/user sweeps
 mirror the reference's fit loop (R/model_WRMF.R:318-338), including the
 final avoid-CG half-sweep that makes ``fit_transform(x)`` equal
 ``transform(x)`` exactly (R/model_WRMF.R:355-359, tested in the reference
@@ -126,10 +126,10 @@ class WRMF(MatrixFactorizationRecommender):
         self.mesh = mesh
         self.compute_dtype = compute_dtype
         #: dense zipf-head split (sparse/device.py HotBlock): the hottest
-        #: columns of each sweep orientation are handled as a dense MXU
+        #: columns of each sweep orientation are handled as a dense matmul
         #: block with zero per-nnz gathers.  ``0`` disables, an int fixes
-        #: the head size, "auto" picks by the measured break-even column
-        #: count (PERF.md: gather ~2 KB/nnz vs dense ~12 B/row/column).
+        #: the head size, "auto" picks by a break-even column count
+        #: (see ``_resolve_n_hot``).
         self.n_hot = n_hot
         #: storage dtype of the dense hot block: "auto" follows
         #: ``compute_dtype``; "uint8" stores quantized confidence codes with
@@ -150,6 +150,15 @@ class WRMF(MatrixFactorizationRecommender):
             if with_user_item_bias:
                 raise ValueError("routing='alx' does not support "
                                  "per-entity biases")
+        if (routing == "alx_ragged"
+                and mesh.devices.flat[0].platform == "gpu"):
+            # the ragged exchange alone matches its plan on the GPU, but
+            # fits routed through it returned wrong factors (4 H100s,
+            # jax 0.9.0; PERF.md) — refuse rather than emulate
+            raise NotImplementedError(
+                "routing='alx_ragged' is disabled on GPUs: fits routed "
+                "through ragged_all_to_all returned wrong factors there; "
+                "use routing='alx'")
         self.routing = routing
         if hot_dtype not in ("auto", "uint8", "bfloat16", "float32"):
             raise ValueError(f"unknown hot_dtype {hot_dtype!r}")
@@ -210,7 +219,8 @@ class WRMF(MatrixFactorizationRecommender):
             # multi-host factor routing the plain all-gather path can't
             # do).  "alx_ragged" swaps the padded all_to_all for
             # ragged_all_to_all — exactly the referenced rows cross the
-            # wire (single-axis meshes; emulated off-TPU).
+            # wire (single-axis meshes; emulated on CPU, whose XLA has no
+            # ragged collective).
             from ..parallel.alx import stage_alx
             from ..parallel.multihost import DATA_AXES
             axis = ("data" if "data" in self.mesh.axis_names
@@ -266,10 +276,9 @@ class WRMF(MatrixFactorizationRecommender):
                                            hot_rows=hot_rows)
         # small problems: one jitted program for the WHOLE half-sweep.  The
         # streamed path dispatches one program per bucket, and per-dispatch
-        # latency (not compute) dominates small fits — the ML-100k quality
-        # gate spends ~95% of its wall time on dispatch round-trips.  Large
-        # problems keep the per-shape streamed programs (compile cost is per
-        # bucket shape there, which matters when remote compiles are slow).
+        # latency (not compute) dominates small fits.  Large problems keep
+        # the per-shape streamed programs (compile cost is per bucket shape
+        # there, not per bucket).
         if sum(b.batch * b.pad_len for b in buckets) <= (1 << 22):
             return _jit_whole_sweep(src, tgt, buckets, src_cnt,
                                     jnp.asarray(lam), jnp.asarray(g), cfg,
@@ -282,10 +291,11 @@ class WRMF(MatrixFactorizationRecommender):
         """Head size for the dense zipf-head split of one sweep orientation.
 
         Only the CG-no-per-entity-bias configurations have a hot kernel
-        path; "auto" includes every column whose nnz count clears the
-        measured break-even (a cold nnz costs ~2 KB of gather+stream
-        traffic, a hot column ~12 B per target row per sweep — see
-        PERF.md), capped by a 1 GB budget for the dense W block.
+        path; "auto" includes every column whose nnz count clears a
+        break-even (a cold nnz pays a gathered factor row, a hot column a
+        dense W entry per target row per sweep), capped by a 1 GB budget
+        for the dense W block.  The break-even constants were derived on
+        an earlier chip and are not tuned on the H100 (PERF.md).
         """
         if (self.with_user_item_bias
                 or self._multihost or self.routing is not None):
@@ -405,8 +415,7 @@ class WRMF(MatrixFactorizationRecommender):
         # -> host->device transfer per orientation, plus the full-matrix
         # transform buckets).  Run them on threads when single-process:
         # numpy/scipy and the OpenMP native fill release the GIL, and the
-        # chains were measured at 2.3-3.6 s EACH at bench scale with zero
-        # overlap (BENCH_r03 / VERDICT r03 weak-#4).  Multihost keeps the
+        # chains share no data.  Multihost keeps the
         # sequential order — its bucket negotiation issues collectives,
         # which must be issued in identical order on every process.
         def chain_ui():
@@ -459,7 +468,7 @@ class WRMF(MatrixFactorizationRecommender):
                 hot_iu = shard_hot(hot_iu, self.mesh)
             # pre-gather the hot rows into bucket order once: bucket order
             # is fixed for the whole fit, and the per-sweep W[ids] random
-            # gather costs ~15% of the bench sweep (sparse/device.py
+            # gather is a random row gather per bucket (sparse/device.py
             # hot_bucket_rows) (works under a mesh too: W is
             # "model"-col-sharded, bucket row ids "data"-sharded, so the
             # staged rows come out (data, model)-sharded and the per-sweep
@@ -487,10 +496,9 @@ class WRMF(MatrixFactorizationRecommender):
         if self.routing is None and not self._multihost:
             # warm re-fits on the same matrix skip the whole staging
             # pipeline (hot/cold splits + bucket builds + transfers +
-            # hot-row pre-gathers: ~4 s of the 6.3 s warm e2e fit at bench
-            # scale).  Multihost/ALX staging issues collectives whose
-            # order must match across processes, and per-process LRU state
-            # may differ — keep those uncached.
+            # hot-row pre-gathers).  Multihost/ALX staging issues
+            # collectives whose order must match across processes, and
+            # per-process LRU state may differ — keep those uncached.
             from ..sparse.device import staged_cached
             (hot_ui, hot_iu, ui, iu, ui_full, iu_hot_rows, ui_hot_rows,
              self._cnt_u, self._cnt_i) = staged_cached(

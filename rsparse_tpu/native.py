@@ -3,7 +3,8 @@
 Replaces the reference's Rcpp/C++ host glue (src/RcppExports.cpp,
 src/utils.cpp:58-128) with a plain C ABI: padded-bucket fill, parallel
 interaction-log parsing, CSR transpose.  Auto-builds with ``make`` on first
-use; every caller has a numpy fallback, so a missing toolchain degrades
+use (serially, without OpenMP, when the compiler has no OpenMP runtime);
+every caller has a numpy fallback, so a missing toolchain degrades
 gracefully.
 """
 
@@ -27,16 +28,19 @@ _tried = False
 
 
 def _build() -> bool:
-    try:
-        out = subprocess.run(["make", "-C", _NATIVE_DIR], check=False,
-                             capture_output=True, text=True, timeout=120)
-        if out.returncode != 0:
-            logger.warning("native build failed: %s", out.stderr[-500:])
+    for extra in ([], ["OPENMP="]):
+        try:
+            out = subprocess.run(["make", "-C", _NATIVE_DIR, *extra],
+                                 check=False, capture_output=True, text=True,
+                                 timeout=120)
+        except (OSError, subprocess.SubprocessError) as e:
+            logger.warning("native build error: %s", e)
             return False
-        return True
-    except Exception as e:  # noqa: BLE001
-        logger.warning("native build error: %s", e)
-        return False
+        if out.returncode == 0:
+            return True
+        logger.warning("native build %s failed: %s", extra or "(OpenMP)",
+                       out.stderr[-500:])
+    return False
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

@@ -1,13 +1,13 @@
 """Batched alternating-least-squares sweep kernels for WRMF.
 
-This is the TPU-native redesign of the reference ALS kernels
+This is the batched redesign of the reference ALS kernels
 (``als_implicit`` inst/include/wrmf_implicit.hpp:91-305, ``als_explicit``
 inst/include/wrmf_explicit.hpp:34-174).  Where the reference loops over
 entities with OpenMP and solves one rank-dim system per thread, here a whole
 nnz-bucket of entities is solved at once:
 
     gather   Xg   = src[col_idx]            (B, L, d)   -- one XLA gather
-    weight   lhs  = XtX + Xg' diag(w) Xg    (B, d, d)   -- batched MXU matmul
+    weight   lhs  = XtX + Xg' diag(w) Xg    (B, d, d)   -- batched matmul
     rhs      rhs  = Xg' c                   (B, d)
     solve    batched Cholesky / 3-step CG / NNLS coordinate descent
 
@@ -53,10 +53,10 @@ _SOLVER_CODES = {"cholesky": CHOLESKY, "conjugate_gradient": CONJUGATE_GRADIENT,
 
 def _exact_prec(gdt):
     """Matmul precision for the exact (Cholesky/NNLS) solver inputs: with
-    f32 operands the TPU default is ONE bf16 MXU pass (~3e-3 relative error
-    on the normal equations), so f32 compute means HIGHEST there; bf16
-    operands keep the default (the user opted into reduced precision).  The
-    exact paths are solve-dominated, so the multi-pass f32 dots are cheap.
+    f32 operands the default lets XLA run the products in TF32 on the GPU
+    (about three decimal digits on the normal equations), so f32 compute
+    means HIGHEST there; bf16 operands keep the default (the user opted
+    into reduced precision).
     """
     return lax.Precision.HIGHEST if gdt == jnp.float32 else None
 
@@ -76,8 +76,8 @@ class ALSConfig:
     use_global_bias: bool = False
     dynamic_lambda: bool = False
     nnls_max_iter: int = 10_000
-    #: dtype of the gathered factor blocks fed to the MXU ("bfloat16" halves
-    #: HBM traffic of the hot gathers; accumulation stays float32)
+    #: dtype of the gathered factor blocks fed to the matmuls ("bfloat16"
+    #: halves the memory traffic of the gathers; accumulation stays f32)
     compute_dtype: str = "float32"
     #: solve rows with zero total nnz too (implicit global-bias semantics,
     #: wrmf_implicit.hpp:180).  Only consulted on the hot/cold-split path,
@@ -124,7 +124,7 @@ def hot_outer_table(Vh: jax.Array, sdt) -> jax.Array:
 
 def _hot_lhs(w: jax.Array, Vh: jax.Array, sdt, outer=None) -> jax.Array:
     """Dense-head per-entity normal-matrix term
-    ``lhs_hot[b] = sum_h w[b,h] * Vh[h] Vh[h]'`` as a single MXU matmul
+    ``lhs_hot[b] = sum_h w[b,h] * Vh[h] Vh[h]'`` as a single matmul
     against the (H, d*d) outer-product table.  w: (B, H); Vh: (H, d)."""
     d = Vh.shape[1]
     if outer is None:
@@ -158,18 +158,17 @@ def _solve_bucket_implicit(
 
     With a hot/cold split (sparse/device.py ``HotBlock``) the bucket holds
     only the cold (long-tail) nnz; the head items' contributions enter as
-    dense MXU matmuls against ``hot_W``/``V_hot`` — algebraically the same
+    dense matmuls against ``hot_W``/``V_hot`` — algebraically the same
     normal equations, partitioned by item set, with zero per-nnz gathers for
     the head.
     """
     mask = bucket.mask()
     gdt = (jnp.bfloat16 if (cfg.compute_dtype == "bfloat16"
                             and sdt == jnp.float32) else sdt)
-    # Gather from a shadow table pre-cast to the compute dtype (bf16 rows
-    # fetch slightly FASTER than f32 rows on v5e — 290M vs 267M rows/s,
-    # scripts/exp_gather.py — and halve the random-read bytes); the barrier
-    # pins the cast BEFORE the gather so XLA cannot commute it back onto the
-    # gather output (which would re-read f32 rows).
+    # Gather from a shadow table pre-cast to the compute dtype (halves the
+    # random-read bytes); the barrier pins the cast BEFORE the gather so XLA
+    # cannot commute it back onto the gather output (which would re-read
+    # f32 rows).
     src_g = jax.lax.optimization_barrier(src_act.astype(gdt))
     Xg = src_g[bucket.col_idx]                               # (B, L, d)
     c = bucket.values.astype(sdt)
@@ -196,8 +195,8 @@ def _solve_bucket_implicit(
     if hot_W is not None:
         # dense head terms (no per-nnz gathers): Wc = c (0 = absent),
         # W1 = c - 1 on present entries.  All (B, H) intermediates stay in
-        # the compute dtype — the hot chain is W-block-bandwidth-bound and
-        # f32 copies of the 512 MB block double its cost (PERF.md).  With a
+        # the compute dtype — the hot chain reads the whole W block, and
+        # f32 copies of it would double the bytes.  With a
         # quantized block the dequant (1 mul by a per-row scalar) fuses into
         # each pass, so the passes read 1-byte codes instead of bf16.
         Vh = V_hot.astype(gdt)                           # (H, d)
@@ -232,7 +231,7 @@ def _solve_bucket_implicit(
                                      precision=_exact_prec(gdt))
         if hot_W is not None:
             # dense-head lhs term: sum_h W1[b,h] v_h v_h' — one
-            # (B,H)x(H,d^2) MXU matmul against the precomputed outer
+            # (B,H)x(H,d^2) matmul against the precomputed outer
             # products (same partition-by-column-set algebra as the CG
             # matvec, materialized; reference lhs build
             # inst/include/wrmf_implicit.hpp:206-237).  NOTE: costs
@@ -286,7 +285,7 @@ def _solve_bucket_explicit(
     lhs = Xg' Xg + lambda_use I,  rhs = Xg' (r - x_bias),
     lambda_use = lambda * nnz when dynamic (wrmf_explicit.hpp:78).
 
-    With a hot/cold split the head columns' terms are dense MXU matmuls
+    With a hot/cold split the head columns' terms are dense matmuls
     (same partition-by-column-set algebra as the implicit path).  Presence
     of an observed entry is a packed bitmask (``hot_bits``) because a 0.0
     rating is a legal observed value: zero ratings contribute nothing to the
@@ -401,7 +400,7 @@ def _sweep_prepare(src, lam, g, cfg: ALSConfig, sdt):
 
     if cfg.feedback == "implicit":
         # one small full-table Gram per sweep: always exact (f32 inputs at
-        # default precision would run as a single bf16 MXU pass)
+        # default precision may run in TF32)
         XtX = jnp.einsum("nd,ne->de", src_act.astype(sdt),
                          src_act.astype(sdt), preferred_element_type=sdt,
                          precision=_exact_prec(sdt))
@@ -409,7 +408,7 @@ def _sweep_prepare(src, lam, g, cfg: ALSConfig, sdt):
     else:
         # explicit feedback builds per-entity Grams from the gathered rows
         # only (wrmf_explicit.hpp:74-78) — the full-table Gram would be an
-        # n_src x d^2 MXU pass whose value no consumer reads.  A 1x1 token
+        # n_src x d^2 matmul whose value no consumer reads.  A 1x1 token
         # keeps the bucket-program signature (its dtype carries sdt).
         XtX = jnp.zeros((1, 1), sdt)
 
@@ -472,7 +471,7 @@ def _solve_scatter(result_act, src_act, x_biases, XtX, rhs_init,
 
     ``hot_pre``: optional staging-time pre-gathered hot rows for this
     bucket (sparse/device.py ``hot_bucket_rows``) — skips the per-sweep
-    ``W[ids]`` random gather (~15% of the bench sweep, PERF.md)."""
+    ``W[ids]`` random gather."""
     sdt = XtX.dtype
     ids = jnp.minimum(bucket.row_ids, n_tgt - 1)
     valid = bucket.row_ids < n_tgt

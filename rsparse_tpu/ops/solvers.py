@@ -4,7 +4,7 @@ The reference solves one rank-dim system per entity inside an OpenMP loop
 (Cholesky `arma::solve(...likely_sympd)` inst/include/wrmf_implicit.hpp:236,
 3-step CG `cg_solver_implicit` :9-32, NNLS coordinate descent
 inst/include/nnls.hpp:11-48).  Here every solver is *batched over entities*:
-one (B, d, d) Cholesky / CG / NNLS per nnz-bucket, so the MXU sees large
+one (B, d, d) Cholesky / CG / NNLS per nnz-bucket, so the device sees large
 batched matmuls instead of rank-10 scalar loops.
 """
 
@@ -28,181 +28,18 @@ NNLS_EPS = 1e-16
 def batched_spd_solve(lhs: jax.Array, rhs: jax.Array) -> jax.Array:
     """Solve ``lhs @ x = rhs`` for a batch of SPD systems.
 
-    lhs: (B, d, d), rhs: (B, d) -> (B, d).  Large batches route to the
-    blocked batched Cholesky — the fastest measured formulation on v5e
-    (28.4 ms per 8192 systems at d=128: 7.4x faster than XLA's native
-    ``cholesky``+``triangular_solve`` at 210 ms, 18x over ``linalg.solve``
-    LU at 510 ms, and 3.3x over a VMEM-resident Pallas kernel; see the
-    PERF.md round-3 solver ADR for the full matrix).  Small problems keep
-    the library path (its per-entity scalar lowering only loses at scale).
+    lhs: (B, d, d), rhs: (B, d) -> (B, d).  Batched Cholesky plus two
+    triangular solves through ``lax.linalg``, which XLA hands to cuSOLVER
+    and cuBLAS on the GPU (3.8 ms per 8192 systems at d=128 in f32 on an
+    H100, 3.5x faster than a blocked formulation in plain JAX; PERF.md
+    "Kernel decisions").
     """
-    B, d = lhs.shape[0], lhs.shape[-1]
-    if B * d * d >= 1 << 16 and d >= 16:
-        return batched_spd_solve_blocked(lhs, rhs)
     chol = lax.linalg.cholesky(lhs)
     y = lax.linalg.triangular_solve(
         chol, rhs[..., None], left_side=True, lower=True)
     x = lax.linalg.triangular_solve(
         chol, y, left_side=True, lower=True, transpose_a=True)
     return x[..., 0]
-
-
-# All matmuls inside the factorization/substitution run at HIGHEST matmul
-# precision: the TPU default lowers f32 dots to one bf16 MXU pass, which
-# costs ~3.5e-3 relative error on the solution — a silent break of the
-# "exact solver" contract (reference arma::solve is true f32/f64).  The
-# blocked solve is bound by its sequential op chain, not the MXU, so the
-# multi-pass f32 dots are free.
-_HI = lax.Precision.HIGHEST
-
-
-def _chol_panel(A: jax.Array) -> jax.Array:
-    """Unblocked Cholesky of a (B, n, n) SPD panel via n masked rank-1
-    sweeps (vectorized over the batch; n is small, e.g. 32)."""
-    n = A.shape[-1]
-    rows = lax.broadcasted_iota(jnp.int32, (n, n), 0)
-    cols = lax.broadcasted_iota(jnp.int32, (n, n), 1)
-
-    def body(j, A):
-        piv = jnp.sqrt(jnp.maximum(A[:, j, j], 0.0))       # (B,)
-        safe = jnp.where(piv > 0, piv, 1.0)
-        col = A[:, :, j] / safe[:, None]                   # (B, n)
-        # write column j (rows >= j), zero above-diagonal of column j
-        colmask = (rows >= j) & (cols == j)
-        A = jnp.where(colmask[None], col[:, :, None] *
-                      jnp.ones((1, 1, n), A.dtype), A)
-        # trailing update: rows>j, cols>j
-        trail = (rows > j) & (cols > j)
-        upd = col[:, :, None] * col[:, None, :]
-        A = A - jnp.where(trail[None], upd, 0.0)
-        return A
-
-    A = lax.fori_loop(0, n, body, A)
-    # keep only the lower triangle
-    return jnp.where((rows >= cols)[None], A, 0.0)
-
-
-def _trsm_lower(L: jax.Array, Bmat: jax.Array) -> jax.Array:
-    """Solve X @ L.T = B for X, with L (B, n, n) lower-triangular and
-    B (B, m, n): forward substitution over the n columns."""
-    n = L.shape[-1]
-
-    def body(j, X):
-        # x_j = (b_j - sum_{k<j} X_k * L[j, k]) / L[j, j]
-        lrow = L[:, j, :]                                  # (B, n)
-        kmask = (lax.broadcasted_iota(jnp.int32, (n,), 0) < j)
-        acc = jnp.einsum("bmn,bn->bm", X,
-                         jnp.where(kmask[None], lrow, 0.0), precision=_HI)
-        ljj = lrow[:, j]
-        xj = (Bmat[:, :, j] - acc) / jnp.where(ljj > 0, ljj, 1.0)[:, None]
-        return X.at[:, :, j].set(xj)
-
-    return lax.fori_loop(0, n, body, jnp.zeros_like(Bmat))
-
-
-def _trsm_lower_t(L: jax.Array, Bmat: jax.Array) -> jax.Array:
-    """Solve X @ L = B for X, with L (B, n, n) lower-triangular and
-    B (B, m, n): backward substitution over the n columns (equivalently
-    solves ``L.T x = b`` per row of B).  Written with a descending
-    ``fori_loop`` index rather than array reversal — ``lax.rev`` on this
-    pattern crashes XLA:CPU's AlgebraicSimplifier (HandleReverse)."""
-    n = L.shape[-1]
-
-    def body(i, X):
-        j = n - 1 - i
-        # x_j = (b_j - sum_{k>j} X_k * L[k, j]) / L[j, j]
-        lcol = L[:, :, j]                                  # (B, n)
-        kmask = (lax.broadcasted_iota(jnp.int32, (n,), 0) > j)
-        acc = jnp.einsum("bmn,bn->bm", X,
-                         jnp.where(kmask[None], lcol, 0.0), precision=_HI)
-        ljj = L[:, j, j]
-        xj = (Bmat[:, :, j] - acc) / jnp.where(ljj > 0, ljj, 1.0)[:, None]
-        return X.at[:, :, j].set(xj)
-
-    return lax.fori_loop(0, n, body, jnp.zeros_like(Bmat))
-
-
-# Batch sweet spot of the blocked solve on v5e (measured, d=128): the
-# ~300-op sequential chain is latency-bound below ~4k batch (8 ms floor),
-# near-optimal at 8k (257k solves/s), and SUPER-linear beyond (32k batch:
-# 233 ms — the (B, d, d) loop carries thrash HBM).  Chunks larger than this
-# are split; the chains are independent, so XLA overlaps them inside one
-# program.
-_SOLVE_CHUNK = 8192
-
-
-def batched_spd_solve_blocked(lhs: jax.Array, rhs: jax.Array,
-                              block: int = 32) -> jax.Array:
-    """MXU-friendly blocked batched Cholesky solve.
-
-    Right-looking blocked factorization: per panel a masked rank-1 sweep
-    (VPU, batch-vectorized), off-diagonal blocks by forward substitution,
-    trailing updates as batched matmuls (MXU).  Dimensions are padded to a
-    block multiple with an identity diagonal (solution unchanged).
-    """
-    B, d = lhs.shape[0], lhs.shape[-1]
-    if B > _SOLVE_CHUNK + _SOLVE_CHUNK // 2:
-        return jnp.concatenate([
-            batched_spd_solve_blocked(lhs[s:s + _SOLVE_CHUNK],
-                                      rhs[s:s + _SOLVE_CHUNK], block)
-            for s in range(0, B, _SOLVE_CHUNK)], axis=0)
-    D = -(-d // block) * block
-    dt = lhs.dtype
-    if D != d:
-        pad = D - d
-        eye = jnp.eye(D, dtype=dt)[None, d:, :]
-        lhs = jnp.concatenate([
-            jnp.concatenate([lhs, jnp.zeros((B, d, pad), dt)], axis=2),
-            jnp.broadcast_to(eye, (B, pad, D))], axis=1)
-        rhs = jnp.concatenate([rhs, jnp.zeros((B, pad), dt)], axis=1)
-
-    nb = D // block
-    A = lhs
-
-    # factorize: L overwrites the lower triangle of A, block column by
-    # block column
-    for k in range(nb):
-        s = k * block
-        panel = _chol_panel(A[:, s:s + block, s:s + block])
-        A = A.at[:, s:s + block, s:s + block].set(panel)
-        if k + 1 < nb:
-            below = A[:, s + block:, s:s + block]            # (B, m, bs)
-            Lb = _trsm_lower(panel, below)
-            A = A.at[:, s + block:, s:s + block].set(Lb)
-            # trailing SPD update: A22 -= Lb @ Lb.T (batched MXU matmul)
-            upd = jnp.einsum("bik,bjk->bij", Lb, Lb,
-                             preferred_element_type=dt, precision=_HI)
-            A = A.at[:, s + block:, s + block:].add(-upd)
-
-    # forward substitution L y = rhs, block by block
-    y = jnp.zeros((B, D), dt)
-    for k in range(nb):
-        s = k * block
-        acc = rhs[:, s:s + block]
-        if k > 0:
-            acc = acc - jnp.einsum(
-                "bij,bj->bi", A[:, s:s + block, :s], y[:, :s],
-                preferred_element_type=dt, precision=_HI)
-        yk = _trsm_lower(A[:, s:s + block, s:s + block],
-                         acc[:, None, :])[:, 0, :]
-        y = y.at[:, s:s + block].set(yk)
-
-    # back substitution L' x = y, block by block (reverse)
-    x = jnp.zeros((B, D), dt)
-    for k in reversed(range(nb)):
-        s = k * block
-        acc = y[:, s:s + block]
-        if k + 1 < nb:
-            # contribution of already-solved lower blocks through L'
-            acc = acc - jnp.einsum(
-                "bji,bj->bi", A[:, s + block:, s:s + block],
-                x[:, s + block:], preferred_element_type=dt, precision=_HI)
-        # solve L_kk' x_k = acc  (backward substitution; no lax.rev)
-        Lkk = A[:, s:s + block, s:s + block]
-        xk = _trsm_lower_t(Lkk, acc[:, None, :])[:, 0, :]
-        x = x.at[:, s:s + block].set(xk)
-
-    return x[:, :d]
 
 
 def batched_cg(
@@ -270,12 +107,14 @@ def batched_nnls(
     lhs: (B, d, d), rhs: (B, d), init: (B, d) -> (B, d).
     """
     d = lhs.shape[-1]
+    # exact solver: f32 products must not drop to TF32 (or one bf16 pass)
+    hi = lax.Precision.HIGHEST
     G = jnp.einsum("bki,bkj->bij", lhs, lhs,
-                   preferred_element_type=lhs.dtype)
+                   preferred_element_type=lhs.dtype, precision=hi)
     G = G + NNLS_EPS * jnp.eye(d, dtype=lhs.dtype)
     Gdiag = jnp.diagonal(G, axis1=-2, axis2=-1)  # (B, d)
-    mu0 = jnp.einsum("bij,bj->bi", G, init) - jnp.einsum(
-        "bji,bj->bi", lhs, rhs)
+    mu0 = jnp.einsum("bij,bj->bi", G, init, precision=hi) - jnp.einsum(
+        "bji,bj->bi", lhs, rhs, precision=hi)
 
     def coord_body(k, state):
         x, mu, rel = state

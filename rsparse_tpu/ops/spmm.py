@@ -7,7 +7,7 @@ only at the nnz pattern of a template matrix
 (reference src/utils.cpp:5-56, R/utils_SoftALS.R:3-22).
 
 Both are expressed over the padded-bucket substrate: gathers + masked
-einsums that XLA maps onto the MXU, instead of per-row OpenMP loops.
+einsums that XLA maps onto matrix units, instead of per-row OpenMP loops.
 """
 
 from __future__ import annotations

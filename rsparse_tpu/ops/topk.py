@@ -1,20 +1,20 @@
-"""Masked top-K retrieval: the TPU replacement for ``top_product``.
+"""Masked top-K retrieval: the device replacement for ``top_product``.
 
 The reference computes one BLAS row-vector product per user and streams it
 through a size-k min-heap with per-user ``not_recommend`` masking and a
 global exclude set (reference src/matrix_top_product.cpp:20-102, R wrapper
-``find_top_product`` R/utils.R:31-59).  On TPU the same result comes from a
-single jitted ``lax.scan`` over user chunks: a dense MXU matmul per chunk
-(``scores = U_chunk @ V``) followed by a masked tournament top-k.
+``find_top_product`` R/utils.R:31-59).  Here the same result comes from a
+single jitted ``lax.scan`` over user chunks: a dense matmul per chunk
+(``scores = U_chunk @ V``, f32 at HIGHEST precision) followed by a masked
+tournament top-k.
 
 Masks travel as **packed bitmasks** ((users, items/8) uint8, little-endian
-bit order), not as ``-inf`` scatters: a random scatter of mask entries into
-the (users, items) score matrix costs ~70M element-scatters/s on TPU and
-dominated retrieval (PERF.md); the bitmask instead expands with three VPU
-ops (shift/and/compare) that XLA fuses directly into the tournament's single
-full pass over the scores — the mask never touches HBM as a full-size
-tensor.  Everything is staged to the device once — per-chunk host
-round-trips would dominate otherwise.
+bit order), not as ``-inf`` scatters into the (users, items) score matrix:
+the bitmask expands with three elementwise ops (shift/and/compare) that XLA
+fuses directly into the tournament's single full pass over the scores — the
+mask never reaches device memory as a full-size tensor.  Everything is
+staged to the device once — per-chunk host round-trips would dominate
+otherwise.
 """
 
 from __future__ import annotations
@@ -28,6 +28,17 @@ import numpy as np
 import scipy.sparse as sp
 
 NEG_INF = float(np.finfo(np.float32).min)
+
+#: users per scanned device step.  Larger chunks amortize the tournament's
+#: k sequential take rounds over more rows: on an H100 at 26,744 items the
+#: masked scan ran at 40G item-scores/s with 256, 98G with 1024 and 178G
+#: with 4096 users per chunk (PERF.md "Kernel decisions").
+USER_CHUNK = 4096
+
+#: the scoring product runs in full f32: the default lets XLA use TF32 on
+#: the GPU, which reorders near-ties (0.3% of top-10 indices differed from
+#: a float64 oracle at rank 128 on an H100; none at HIGHEST)
+SCORE_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def _tournament_steps(sg: jax.Array, bg, k: int, gmean,
@@ -90,11 +101,12 @@ def exact_top_k_tournament(scores: jax.Array, k: int, group: int = 256):
     globally best group, re-scan only that group's ``group`` values with
     already-taken entries masked, and update the tables.
 
-    ``lax.top_k`` lowers to full bitonic sorts on TPU (~40 passes over the
-    score matrix); this formulation reads the matrix once plus k tiny
-    gathers — measured 3.6x faster end-to-end at (4096, 32768), exact
-    index agreement (scripts/exp_topk2.py).  Ties resolve to the lowest
-    index, matching stable ``lax.top_k``.
+    The formulation reads the score matrix once plus k tiny gathers.  On
+    an H100 it was 6.5x faster than masked scores plus ``lax.top_k``
+    (32,768 users in chunks of 4,096, 26,744 items, k=10), with identical
+    indices (PERF.md "Kernel decisions").  Ties resolve to the lowest
+    index, matching stable ``lax.top_k``.  ``group`` (256) is carried over
+    from an earlier chip and not tuned on the H100.
 
     Taken entries are killed by a single lexicographic threshold against
     the entry just taken — a group's take sequence is strictly decreasing
@@ -203,35 +215,6 @@ def pack_mask_bits(
     return np.packbits(dense, axis=1, bitorder="little")
 
 
-def exact_top_k(scores: jax.Array, k: int, group: int = 512):
-    """Exact top-k via two stages: per-group top-k then a merge top-k.
-
-    ``lax.top_k`` over a long item axis lowers to a full sort on TPU; the
-    global top-k is contained in the union of per-group top-k's, so sorting
-    ``n/group`` short groups + one (n/group * k)-wide merge is exact and an
-    order of magnitude cheaper.  scores: (..., n) -> ((..., k), (..., k)).
-    """
-    n = scores.shape[-1]
-    if n <= max(2 * group, 2 * k):
-        s, i = jax.lax.top_k(scores, k)
-        return s, i.astype(jnp.int32)
-    G = -(-n // group)
-    pad = G * group - n
-    if pad:
-        scores = jnp.concatenate(
-            [scores, jnp.full(scores.shape[:-1] + (pad,), NEG_INF,
-                              scores.dtype)], axis=-1)
-    kk = min(k, group)
-    gs, gi = jax.lax.top_k(
-        scores.reshape(scores.shape[:-1] + (G, group)), kk)
-    base = (jnp.arange(G, dtype=jnp.int32) * group)[:, None]
-    gi = gi.astype(jnp.int32) + base                    # globalize
-    flat_s = gs.reshape(scores.shape[:-1] + (G * kk,))
-    flat_i = gi.reshape(scores.shape[:-1] + (G * kk,))
-    ms, mi = jax.lax.top_k(flat_s, k)
-    return ms, jnp.take_along_axis(flat_i, mi, axis=-1)
-
-
 @partial(jax.jit, static_argnames=("k",))
 def _topk_scan(x, y, bits, glob_mean, k: int):
     """x: (n_chunks, C, R); y: (R, n_pad); bits: (n_chunks, C, n_pad // 8)
@@ -240,7 +223,8 @@ def _topk_scan(x, y, bits, glob_mean, k: int):
 
     def chunk(_, args):
         xc, bc = args
-        scores = jnp.dot(xc, y, preferred_element_type=jnp.float32)
+        scores = jnp.dot(xc, y, preferred_element_type=jnp.float32,
+                         precision=SCORE_PRECISION)
         ts, ti = masked_top_k_bits(scores, bc, k, glob_mean=glob_mean)
         return None, (ts, ti)
 
@@ -253,7 +237,8 @@ def _topk_scan_nomask(x, y, glob_mean, k: int):
     """Mask-free variant over the true (unpadded) item axis."""
 
     def chunk(_, xc):
-        scores = jnp.dot(xc, y, preferred_element_type=jnp.float32)
+        scores = jnp.dot(xc, y, preferred_element_type=jnp.float32,
+                         precision=SCORE_PRECISION)
         ts, ti = exact_top_k_tournament(scores + glob_mean, k)
         return None, (ts, ti)
 
@@ -268,7 +253,7 @@ def top_product(
     not_recommend: Optional[sp.spmatrix] = None,
     exclude: Optional[np.ndarray] = None,
     glob_mean: float = 0.0,
-    user_chunk: int = 256,
+    user_chunk: int = USER_CHUNK,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Top-k items by score ``x @ y + glob_mean`` with masking.
 
@@ -277,10 +262,7 @@ def top_product(
     Same contract as the reference ``top_product``
     (src/matrix_top_product.cpp:20-102) minus R's 1-based indexing.
 
-    ``user_chunk``: rows per scanned device step.  The tournament's k
-    take/re-scan rounds cost O(B) each, so SMALL chunks win as long as the
-    scan keeps the MXU busy — measured optimum 256 on v5e at 32k items
-    (34G masked item-scores/s; 22G at the old 1024, 25G at 128).
+    ``user_chunk``: rows per scanned device step (see ``USER_CHUNK``).
     """
     x_dev = isinstance(x, jax.Array)
     y_dev = isinstance(y, jax.Array)
@@ -344,7 +326,7 @@ def top_product(
 
     if not y_dev:
         # item factors are typically fixed across predict calls: cache the
-        # staged copy (content-addressed; the bench relay moves ~30 MB/s).
+        # staged copy (content-addressed).
         # Fingerprint WITHOUT forcing a contiguous copy — components is
         # usually an F-contiguous transpose view of the (n_items, R) factor
         # table, and ascontiguousarray would copy it on every predict call.

@@ -4,8 +4,7 @@ Integrates the routing primitive (parallel/routing.py) into a real WRMF
 half-sweep.  The plain mesh path lets XLA all-gather the whole source
 factor table to every device before the per-nnz gathers; at DCN scale that
 is wasteful — each device's bucket shard references only a subset of rows.
-Here (the ALX recipe, PAPERS.md "ALX: Large Scale Matrix Factorization on
-TPUs"):
+Here (the ALX recipe, arXiv:2112.02194, PAPERS.md):
 
 - the source factor table is ROW-SHARDED over the mesh's data axis;
 - a static routing plan (built once at staging — sparsity is fixed across
@@ -283,11 +282,11 @@ def alx_sweep(
     src_sh = _put(src_x, mesh, P(axis))
 
     # one exchange per sweep: only the referenced factor rows cross the wire
-    from .routing import RaggedRoutingPlan
+    from .routing import RaggedRoutingPlan, emulate_ragged
     if isinstance(stage.plan, RaggedRoutingPlan):
         p = stage.plan
-        em = (0 if jax.devices()[0].platform == "tpu"
-              else max(int(np.asarray(p.send_sz).max()), 1))
+        em = (max(int(np.asarray(p.send_sz).max()), 1)
+              if emulate_ragged(mesh.devices.flat[0].platform) else 0)
         cache = _get_ragged_exchange_fn(mesh, axis, p.cache_size, em)(
             src_sh, _put(np.asarray(p.want), mesh, P(axis)),
             _put(np.asarray(p.in_off), mesh, P(axis)),

@@ -2,7 +2,7 @@
 
 The reference's only parallelism is shared-memory OpenMP + BLAS threads
 (SURVEY §2.4; reference inst/include/wrmf_implicit.hpp:162-174).  The
-TPU-native replacement is an SPMD device mesh:
+replacement here is an SPMD device mesh:
 
 - axis ``data``  — target entities (users/items being solved) are sharded
   across devices; each device solves its bucket shard (the analog of the

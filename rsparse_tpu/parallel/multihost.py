@@ -2,8 +2,8 @@
 
 The reference has no multi-node layer at all — its parallelism stops at
 shared-memory OpenMP (reference inst/include/wrmf_implicit.hpp:162-174;
-SURVEY §2.4).  This module is the net-new distributed component the TPU
-build adds on top of the same SPMD kernels:
+SURVEY §2.4).  This module is the net-new distributed component this
+package adds on top of the same SPMD kernels:
 
 - :func:`initialize` — process bring-up (``jax.distributed.initialize``;
   gloo collectives when the backend is CPU, for multi-process tests).
@@ -52,8 +52,10 @@ def initialize(
     On CPU backends (multi-process tests; ``jax_platforms=cpu``) this also
     selects gloo cross-process collectives and — when
     ``local_device_count`` is given — the virtual per-process device count.
-    Real TPU pods get their device topology from the TPU runtime and ignore
-    ``local_device_count``.
+    GPU processes get their devices from JAX's CUDA plugin (each process
+    sees the cards it is given, e.g. through ``CUDA_VISIBLE_DEVICES``) and
+    ignore ``local_device_count``; the coordinator address, process count
+    and process id must be passed explicitly.
     """
     import os
 

@@ -1,10 +1,9 @@
 """ALX-style all-to-all factor routing.
 
-At ICI scale, gathering source factors from a row-sharded table via
+Within one host, gathering source factors from a row-sharded table via
 all-gather is fine (the whole table rides the interconnect).  Across hosts
-(DCN) that is wasteful: each host's CSR shard references only a subset of
-the factor rows.  The ALX recipe ("ALX: Large Scale Matrix Factorization on
-TPUs", PAPERS.md) routes *only the referenced rows*: every device asks each
+that is wasteful: each host's CSR shard references only a subset of the
+factor rows.  The ALX recipe (arXiv:2112.02194, PAPERS.md) routes *only the referenced rows*: every device asks each
 owner for the rows its buckets touch, owners slice their shard, and a
 single ``all_to_all`` delivers per-device factor caches; bucket column
 indices are remapped to cache-local positions ahead of time (the sparsity
@@ -131,8 +130,8 @@ def wire_cost_report(plan: RoutingPlan, n_dev: int, rank: int,
     """Analytic per-sweep collective wire bytes of one routed factor
     exchange vs the plain data-parallel path's all-gather.
 
-    This is the point of the ALX design (PAPERS.md "ALX: Large Scale
-    Matrix Factorization on TPUs"): the plain mesh path all-gathers the
+    This is the point of the ALX design (arXiv:2112.02194, PAPERS.md):
+    the plain mesh path all-gathers the
     ENTIRE row-sharded source factor table to every device before the
     per-nnz gathers — wire bytes grow with the table; the routed exchange
     moves only (max-padded) referenced rows — wire bytes grow with the
@@ -283,8 +282,8 @@ def ragged_exchange_body(src_local, want_l, in_off_l, send_sz_l,
     ``emulate_m > 0`` replaces the ragged collective with a dense
     all_to_all padded to ``emulate_m`` rows per pair — XLA:CPU does not
     implement ragged-all-to-all, so the CPU-mesh tests validate the
-    plan/offset/remap math through the emulation while TPU pods run the
-    real collective (identical results by construction)."""
+    plan/offset/remap math through the emulation while accelerators run
+    the real collective (identical results by construction)."""
     r = src_local.shape[1]
     sliced = src_local[want_l[0]]                       # (S_send_max, r)
     n_dev = send_sz_l.shape[1]
@@ -313,6 +312,13 @@ def ragged_exchange_body(src_local, want_l, in_off_l, send_sz_l,
     return out[:cache_size]
 
 
+def emulate_ragged(platform: str) -> bool:
+    """Whether the ragged exchange on devices of ``platform`` runs as the
+    dense emulation: only on ``"cpu"``, whose XLA backend has no
+    ragged-all-to-all.  Every other platform runs the real collective."""
+    return platform == "cpu"
+
+
 def ragged_factor_exchange(
     mesh: Mesh,
     src: jax.Array,
@@ -324,11 +330,10 @@ def ragged_factor_exchange(
     remapped col_idx from :func:`build_ragged_routing_plan`.  Returns a
     (n_dev * cache_size, r) array sharded over ``axis``.
 
-    ``emulate=None`` auto-selects: the real ragged collective on TPU, the
-    dense-padded emulation elsewhere (XLA:CPU lacks ragged-all-to-all)."""
+    ``emulate=None`` auto-selects by :func:`emulate_ragged`."""
     n_dev = mesh.shape[axis]
     if emulate is None:
-        emulate = jax.devices()[0].platform != "tpu"
+        emulate = emulate_ragged(mesh.devices.flat[0].platform)
     emulate_m = int(np.asarray(plan.send_sz).max()) if emulate else 0
     emulate_m = max(emulate_m, 1) if emulate else 0
     sh = NamedSharding(mesh, P(axis))

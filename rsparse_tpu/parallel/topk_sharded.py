@@ -20,7 +20,8 @@ import numpy as np
 import scipy.sparse as sp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from rsparse_tpu.ops.topk import (exact_top_k_tournament, masked_top_k_bits,
+from rsparse_tpu.ops.topk import (SCORE_PRECISION, USER_CHUNK,
+                                  exact_top_k_tournament, masked_top_k_bits,
                                   pack_mask_bits, _expand_bits)
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -212,9 +213,10 @@ def _sharded_topk_fn(mesh, axis, k, shard, n_users, n_dev, is_bits, masked):
 
     def local_pass(x_l, y_l, gm, m_l):
         # per-shard fused dot + mask + top-k (tournament formulation: one
-        # pass over the shard's scores + k tiny group re-scans, vs ~40
-        # bitonic passes for lax.top_k — see ops/topk.py)
-        scores = jnp.dot(x_l, y_l, preferred_element_type=jnp.float32)
+        # pass over the shard's scores + k tiny group re-scans, see
+        # ops/topk.py)
+        scores = jnp.dot(x_l, y_l, preferred_element_type=jnp.float32,
+                         precision=SCORE_PRECISION)
         if is_bits and shard % 256 == 0 and shard > max(512, 2 * k):
             return masked_top_k_bits(scores, m_l, k, glob_mean=gm)
         scores = scores + gm
@@ -223,10 +225,8 @@ def _sharded_topk_fn(mesh, axis, k, shard, n_users, n_dev, is_bits, masked):
             scores = jnp.where(dead, NEG_INF, scores)
         return exact_top_k_tournament(scores, k)
 
-    # the tournament's k take/re-scan rounds cost O(rows) each, so SMALL
-    # row chunks win while the scan keeps the MXU busy — same measured
-    # optimum (256) as the single-device top_product (ops/topk.py)
-    ROWS = 256
+    # row chunks of the single-device scan (ops/topk.py USER_CHUNK)
+    ROWS = USER_CHUNK
 
     def local_topk(x_l, y_l, gm, m_l=None):
         if n_users % ROWS == 0 and n_users > ROWS:

@@ -43,7 +43,7 @@ def train_step(
 
     ``hot_iu`` / ``hot_ui`` are optional dense zipf-head blocks
     (sparse/device.py ``HotBlock``, placed with ``mesh.shard_hot``): the
-    head columns' normal-equation terms run as MXU matmuls whose H-axis
+    head columns' normal-equation terms run as matmuls whose H-axis
     contractions psum over the ``model`` axis.
     """
     V, _ = wrmf_sweep(U, V, iu_buckets, cnt_u, lam, g, cfg_items,

@@ -10,7 +10,8 @@ hyperparameters go to a sidecar; arrays go to either
 
 - an ``.npz`` (host gather; the always-works single-host store), or
 - an **orbax** checkpoint (``store="orbax"``, or automatically whenever a
-  device array is committed to more than one device): every device writes
+  device array is committed to more than one device and orbax can be
+  imported; orbax is an optional dependency): every device writes
   its own shards — factor tables sharded over a mesh are saved WITHOUT a
   host gather, and ``load(..., sharding=...)`` restores them directly into
   the requested sharding (multi-host restore).
@@ -60,11 +61,29 @@ def _fit_sharding(sharding, shape):
         return None
 
 
+def _have_orbax() -> bool:
+    try:
+        import orbax.checkpoint  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _orbax():
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ImportError(
+            "store='orbax' needs the optional package orbax-checkpoint "
+            "(import orbax.checkpoint failed)") from e
+    return ocp
+
+
 def save(model: Any, path: str, store: str = "auto") -> None:
     """Save a fitted model to ``path`` (a directory).
 
     ``store``: "npz" | "orbax" | "auto" (orbax when any array is sharded
-    across devices, else npz)."""
+    across devices and orbax is installed, else npz)."""
     os.makedirs(path, exist_ok=True)
     arrays: Dict[str, Any] = {}
     str_arrays: Dict[str, np.ndarray] = {}
@@ -90,7 +109,7 @@ def save(model: Any, path: str, store: str = "auto") -> None:
         elif _is_jsonable(v):
             meta[k] = v
     if store == "auto":
-        store = "orbax" if any_sharded else "npz"
+        store = "orbax" if any_sharded and _have_orbax() else "npz"
     # string / object arrays: npz stores unicode natively; object arrays and
     # the orbax store degrade to JSON lists (restored back to ndarrays),
     # which is only faithful for 1-D arrays
@@ -105,7 +124,7 @@ def save(model: Any, path: str, store: str = "auto") -> None:
                 f"cannot checkpoint {v.ndim}-D string/object array {k!r} "
                 f"(dtype {v.dtype}) in the {store} store")
     if store == "orbax":
-        import orbax.checkpoint as ocp
+        ocp = _orbax()
         meta["__store__"] = "orbax"
         meta["__orbax_arrays__"] = {
             k: [list(np.shape(v)), str(v.dtype)] for k, v in arrays.items()}
@@ -152,8 +171,7 @@ def load(path: str, cls: Optional[Type] = None, sharding=None) -> Any:
         setattr(model, k, np.asarray(v) if k in strarr else v)
 
     if store == "orbax":
-        import orbax.checkpoint as ocp
-        ckptr = ocp.StandardCheckpointer()
+        ckptr = _orbax().StandardCheckpointer()
         p = os.path.abspath(os.path.join(path, "arrays_orbax"))
         # always restore against a concrete target tree built from the saved
         # specs: restoring with no target is topology-dependent (orbax warns

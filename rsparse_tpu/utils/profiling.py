@@ -7,8 +7,9 @@ as attributes (R/SoftALS.R:145-147).  Here tracing is first-class:
 - :func:`trace` wraps ``jax.profiler`` so any fit can emit a TensorBoard-
   loadable device trace;
 - :class:`FitTrace` is the structured per-phase record models populate
-  (iteration, phase, loss, wall time, device time) — returned data, not an
-  attribute bolted onto a matrix.
+  (iteration, phase, loss, start and wall time on the host's
+  ``time.perf_counter`` clock) — returned data, not an attribute bolted
+  onto a matrix.
 """
 
 from __future__ import annotations
@@ -46,8 +47,9 @@ class FitTrace:
 
     @contextlib.contextmanager
     def phase(self, iteration: int, name: str) -> Iterator[Dict[str, Any]]:
-        rec: Dict[str, Any] = {"iter": iteration, "phase": name}
         t0 = time.perf_counter()
+        rec: Dict[str, Any] = {"iter": iteration, "phase": name,
+                               "start_s": t0}
         try:
             yield rec
         finally:

@@ -35,9 +35,8 @@ def main():
               "MovieLens ratings.csv there first)")
         sys.exit(1)
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir", str(
-        Path(__file__).resolve().parents[1] / ".jax_cache"))
+    from rsparse_tpu.config import use_compile_cache
+    use_compile_cache()
 
     import rsparse_tpu as rt
     from rsparse_tpu.data.io import load_interactions

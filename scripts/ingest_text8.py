@@ -4,7 +4,7 @@ Zero-egress image: the corpus cannot be fetched here; this script is the
 consumer for when it IS present.  Builds the standard GloVe term
 co-occurrence matrix (symmetric window, 1/distance weighting, triangular
 storage — the layout text2vec feeds the reference model,
-R/model_GloVe.R:73-80) and fits the TPU GloVe model.
+R/model_GloVe.R:73-80) and fits the GloVe model.
 
 Usage:
   python scripts/ingest_text8.py /path/to/text8 [rank] [n_iter] [vocab_min]
@@ -64,9 +64,8 @@ def main():
     tcm = build_tcm(tokens, len(vocab))
     print(f"tcm: nnz={tcm.nnz} ({time.time()-t0:.1f}s)")
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir", str(
-        Path(__file__).resolve().parents[1] / ".jax_cache"))
+    from rsparse_tpu.config import use_compile_cache
+    use_compile_cache()
     from rsparse_tpu.models.glove import GloVe
 
     model = GloVe(rank=rank, x_max=100.0, learning_rate=0.15, seed=0,

@@ -3,8 +3,8 @@
 
     python scripts/scaling_bench.py --devices 1 2 4 8 [--cpu]
 
-On a real TPU slice this measures the BASELINE.md scaling target
-(>=80% efficiency at 2 hosts); with --cpu it runs on virtual host devices
+On several accelerators this measures sweep scaling with device count;
+with --cpu it runs on virtual host devices
 (functional validation — on an oversubscribed host the timings are not
 meaningful).  Prints one JSON line per device count.
 """
@@ -40,9 +40,8 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
+    from rsparse_tpu.config import use_compile_cache
+    use_compile_cache()
     import jax.numpy as jnp
     import bench
     from rsparse_tpu.ops.als import ALSConfig, CONJUGATE_GRADIENT

@@ -96,6 +96,35 @@ def test_checkpoint_sharded_save_restore(tmp_path, ml100k_split):
                                np.asarray(m.components))
 
 
+def test_checkpoint_auto_without_orbax(tmp_path, monkeypatch):
+    """store="auto" picks orbax only when it imports: without it a sharded
+    table is saved to npz (host gather), and an explicit store="orbax"
+    raises an error naming the package."""
+    import os
+    import sys
+    import jax
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    class _State:
+        pass
+
+    st = _State()
+    mesh = Mesh(np.array(jax.devices()[:4]), ("model",))
+    st.U = jax.device_put(np.arange(32.0).reshape(8, 4),
+                          NamedSharding(mesh, P("model")))
+    for name in [n for n in sys.modules
+                 if n == "orbax" or n.startswith("orbax.")]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "orbax", None)
+    path = str(tmp_path / "auto")
+    checkpoint.save(st, path)
+    assert os.path.exists(os.path.join(path, "arrays.npz"))
+    back = checkpoint.load(path, cls=_State)
+    np.testing.assert_array_equal(np.asarray(back.U), np.asarray(st.U))
+    with pytest.raises(ImportError, match="orbax"):
+        checkpoint.save(st, str(tmp_path / "explicit"), store="orbax")
+
+
 def test_checkpoint_midfit_resume_exact(tmp_path, ml100k_split):
     """Interrupted fit + resume must be bit-identical to an uninterrupted
     one: the ALS loop is deterministic given (U, V), and the fit state

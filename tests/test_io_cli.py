@@ -64,6 +64,32 @@ def test_fit_trace(ml100k_split):
     assert set(m.fit_trace.summary()) == phases
 
 
+@pytest.mark.parametrize("env_set", [True, False])
+def test_use_compile_cache(monkeypatch, tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR, when set, wins and nothing is changed;
+    otherwise the cache goes to the checkout's fixed .jax_cache."""
+    import jax
+    from rsparse_tpu.config import use_compile_cache
+    before = jax.config.jax_compilation_cache_dir
+    sentinel = str(tmp_path / "sentinel")
+    jax.config.update("jax_compilation_cache_dir", sentinel)
+    try:
+        if env_set:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR",
+                               str(tmp_path / "env"))
+            assert use_compile_cache() == str(tmp_path / "env")
+            assert jax.config.jax_compilation_cache_dir == sentinel
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            repo = os.path.dirname(os.path.dirname(os.path.abspath(
+                __file__)))
+            want = os.path.join(repo, ".jax_cache")
+            assert use_compile_cache() == want
+            assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
 def test_load_interactions_string_ids(tmp_path):
     """Non-numeric user/item identifiers fall back to the host tokenizer
     and are densified with originals kept as row/col names."""

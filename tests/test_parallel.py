@@ -127,6 +127,34 @@ def test_wrmf_model_with_mesh(ml100k_split):
     np.testing.assert_array_equal(p1.indices, p2.indices)
 
 
+@pytest.mark.parametrize("platform,emulate", [("cpu", True),
+                                               ("gpu", False)])
+def test_emulate_ragged_only_on_cpu(platform, emulate):
+    """The ragged exchange runs its dense emulation only where XLA has no
+    ragged collective (the CPU backend); a GPU mesh runs the real
+    ragged_all_to_all."""
+    from rsparse_tpu.parallel.routing import emulate_ragged
+    assert emulate_ragged(platform) is emulate
+
+
+def test_alx_ragged_refused_on_gpu_mesh():
+    """On a GPU mesh routing='alx_ragged' fails loudly at construction
+    (routed fits returned wrong factors on H100s); it never emulates."""
+    from rsparse_tpu import WRMF
+
+    class _Dev:
+        platform = "gpu"
+
+    class _Mesh:
+        axis_names = ("data",)
+        shape = {"data": 4}
+        devices = np.array([_Dev() for _ in range(4)])
+
+    with pytest.raises(NotImplementedError, match="alx_ragged"):
+        WRMF(rank=4, mesh=_Mesh(), routing="alx_ragged")
+    WRMF(rank=4, mesh=_Mesh(), routing="alx")
+
+
 def test_routed_factor_exchange_matches_global_gather():
     """ALX-style all-to-all routing delivers exactly the rows each device's
     buckets reference (vs a direct global gather)."""
@@ -369,7 +397,7 @@ def test_routing_alx_rejects_partial_dcn_mesh():
 
 def test_alx_ragged_sweep_matches_unrouted():
     """routing='alx_ragged' (ragged_all_to_all factor exchange, zero
-    per-pair padding; dense-emulated off-TPU) must equal the plain sweep
+    per-pair padding; dense-emulated on CPU) must equal the plain sweep
     AND the padded alx plan."""
     from rsparse_tpu.parallel.alx import alx_sweep, stage_alx
 

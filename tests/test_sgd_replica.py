@@ -98,7 +98,7 @@ def _fm_replica(X, y01, wts, v0, lr_w, lr_v, lam_w, lam_v,
     """FM per-sample loop.  ``ordering="reference"`` follows
     src/factorization_machine.cpp:147-190 exactly (w0 without AdaGrad,
     scale-then-accumulate, LIVE v within the row);
-    ``ordering="batched"`` replicates the TPU kernel's per-sample
+    ``ordering="batched"`` replicates the batched kernel's per-sample
     semantics (accumulator-first, snapshot s1, accumulated w0)."""
     F, r = v0.shape
     y = np.where(y01 == 1, 1.0, -1.0)
@@ -202,7 +202,7 @@ def test_fm_per_sample_close_to_reference_ordering():
 def _glove_replica(coo, init, x_max, alpha, lr, n_iter,
                    ordering="batched"):
     """GloVe per-triplet loop (src/GloVe.cpp:81-158).  ``ordering``
-    chooses the reference's scale-then-accumulate or the TPU kernel's
+    chooses the reference's scale-then-accumulate or the batched kernel's
     accumulator-first AdaGrad."""
     w_i = init["w_i"].copy()
     w_j = init["w_j"].copy()

@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import scipy.optimize
 
 from rsparse_tpu.ops.solvers import batched_cg, batched_nnls, batched_spd_solve
@@ -57,48 +58,30 @@ def test_batched_nnls():
         np.testing.assert_allclose(x[b], expect, rtol=1e-3, atol=1e-3)
 
 
-def test_blocked_spd_solve_matches_numpy():
-    """MXU-friendly blocked Cholesky (used for large batches on TPU where
-    lax.linalg lowers to scalar code) vs the numpy oracle."""
-    from rsparse_tpu.ops.solvers import batched_spd_solve_blocked
-    rng = np.random.default_rng(0)
-    for B, d in [(4, 12), (16, 32), (9, 100), (8, 128), (3, 129)]:
-        A = rng.standard_normal((B, d, d))
-        lhs = A @ A.transpose(0, 2, 1) + d * np.eye(d)
-        rhs = rng.standard_normal((B, d))
-        x = np.asarray(batched_spd_solve_blocked(jnp.asarray(lhs),
-                                                 jnp.asarray(rhs)))
-        expect = np.linalg.solve(lhs, rhs[..., None])[..., 0]
-        np.testing.assert_allclose(x, expect, rtol=1e-10, atol=1e-12)
-
-
-def test_spd_solve_dispatch_consistency():
-    """Both dispatch regimes of batched_spd_solve agree."""
-    from rsparse_tpu.ops.solvers import (batched_spd_solve,
-                                         batched_spd_solve_blocked)
-    rng = np.random.default_rng(1)
-    B, d = 70, 32   # large enough to hit the blocked path
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("B,d", [(3, 4), (70, 32), (513, 128)])
+def test_batched_spd_solve_matches_numpy(B, d, dtype):
+    """The plain lax.linalg Cholesky path at every batch size and width
+    (cuSOLVER/cuBLAS on the GPU) against a float64 numpy solve."""
+    rng = np.random.default_rng(B + d)
     A = rng.standard_normal((B, d, d))
-    lhs = A @ A.transpose(0, 2, 1) + d * np.eye(d)
+    lhs = A @ A.transpose(0, 2, 1) / d + np.eye(d)
     rhs = rng.standard_normal((B, d))
-    a = np.asarray(batched_spd_solve(jnp.asarray(lhs), jnp.asarray(rhs)))
-    b = np.asarray(batched_spd_solve_blocked(jnp.asarray(lhs),
-                                             jnp.asarray(rhs)))
-    np.testing.assert_allclose(a, b, rtol=1e-9)
+    x = np.asarray(batched_spd_solve(jnp.asarray(lhs, dtype),
+                                     jnp.asarray(rhs, dtype)))
+    assert x.dtype == dtype
+    expect = np.linalg.solve(lhs, rhs[..., None])[..., 0]
+    tol = 1e-10 if dtype == np.float64 else 1e-4
+    np.testing.assert_allclose(x, expect, rtol=tol, atol=tol)
 
 
 def test_exact_solvers_pin_matmul_precision():
-    """The exact solve path must pin HIGHEST matmul precision: the TPU
-    default lowers f32 dots to one bf16 MXU pass (~3e-3 relative solution
-    error — measured on v5e), silently breaking the exact-solver contract.
-    CPU runs are exact either way, so this asserts on the jaxpr."""
-    from rsparse_tpu.ops.solvers import batched_spd_solve_blocked
+    """The exact solve paths must pin HIGHEST matmul precision: with f32
+    operands the default lets XLA run products in TF32 on the GPU (about
+    three decimal digits), silently breaking the exact-solver contract.
+    CPU runs are exact either way, so this asserts on the jaxprs of the
+    Cholesky and NNLS lhs builds and of the NNLS squared system."""
     import jax
-    lhs = jnp.eye(64)[None].repeat(32, 0)
-    rhs = jnp.ones((32, 64))
-    jaxpr = str(jax.make_jaxpr(batched_spd_solve_blocked)(lhs, rhs))
-    assert "HIGHEST" in jaxpr
-
     from rsparse_tpu.ops.als import ALSConfig, wrmf_sweep, solver_code
     from rsparse_tpu.sparse.device import bucket_rows
     import scipy.sparse as sp
@@ -107,22 +90,31 @@ def test_exact_solvers_pin_matmul_precision():
     br = bucket_rows(x, jnp.float32)
     U = jnp.asarray(rng.standard_normal((64, 8)), jnp.float32)
     V = jnp.asarray(rng.standard_normal((32, 8)), jnp.float32)
-    cfg = ALSConfig(feedback="implicit", solver=solver_code("cholesky"))
+    for solver in ("cholesky", "nnls"):
+        cfg = ALSConfig(feedback="implicit", solver=solver_code(solver))
+        jaxpr = str(jax.make_jaxpr(
+            lambda u, v: wrmf_sweep(u, v, br.buckets, None, 0.1, 0.0,
+                                    cfg))(U, V))
+        assert "HIGHEST" in jaxpr, solver
+    lhs = jnp.eye(8, dtype=jnp.float32)[None].repeat(4, 0)
     jaxpr = str(jax.make_jaxpr(
-        lambda u, v: wrmf_sweep(u, v, br.buckets, None, 0.1, 0.0, cfg))(U, V))
-    assert "HIGHEST" in jaxpr
+        lambda a, b, c: batched_nnls(a, b, c, max_iter=3))(
+            lhs, jnp.ones((4, 8), jnp.float32), jnp.ones((4, 8),
+                                                         jnp.float32)))
+    assert jaxpr.count("HIGHEST") >= 3
 
 
-def test_blocked_solve_chunked_batch_matches():
-    """Batches beyond the HBM sweet spot are split into independent chunk
-    chains inside one program; results must equal the unchunked math."""
-    from rsparse_tpu.ops import solvers
-    rng = np.random.default_rng(2)
-    B, d = 2 * solvers._SOLVE_CHUNK, 8
-    A = rng.standard_normal((B, d, 4)).astype(np.float32)
-    lhs = np.einsum("bik,bjk->bij", A, A) + np.eye(d, dtype=np.float32)
+@pytest.mark.gpu
+def test_spd_solve_on_gpu_matches_numpy(gpu):
+    """At the closing transform's width on the card: f32 Cholesky through
+    cuSOLVER within the smoke run's 1e-4 exact-transform tolerance."""
+    rng = np.random.default_rng(3)
+    B, d = 4096, 128
+    A = rng.standard_normal((B, d, d)).astype(np.float32)
+    lhs = A @ A.transpose(0, 2, 1) / d + np.eye(d, dtype=np.float32)
     rhs = rng.standard_normal((B, d)).astype(np.float32)
-    x = np.asarray(solvers.batched_spd_solve_blocked(jnp.asarray(lhs),
-                                                     jnp.asarray(rhs)))
-    expect = np.linalg.solve(lhs, rhs[..., None])[..., 0]
-    np.testing.assert_allclose(x, expect, rtol=2e-4, atol=2e-5)
+    x = np.asarray(batched_spd_solve(jnp.asarray(lhs), jnp.asarray(rhs)))
+    expect = np.linalg.solve(lhs.astype(np.float64),
+                             rhs.astype(np.float64)[..., None])[..., 0]
+    err = np.linalg.norm(x - expect, axis=1) / np.linalg.norm(expect, axis=1)
+    assert err.max() < 1e-4, err.max()

@@ -5,6 +5,7 @@ The reference checks top_product against a dense order() oracle
 cases (test-metrics.R)."""
 
 import numpy as np
+import pytest
 import scipy.sparse as sp
 
 from rsparse_tpu.ops.topk import top_product
@@ -22,18 +23,6 @@ def test_top_product_matches_dense_oracle():
     np.testing.assert_array_equal(idx, expect)
     np.testing.assert_allclose(
         scores, np.take_along_axis(dense, expect, 1), rtol=1e-5)
-
-
-def test_exact_top_k_group_merge_vs_oracle():
-    """The two-stage group/merge variant (kept as the benchmark
-    alternative to the tournament) stays exact."""
-    import jax.numpy as jnp
-    from rsparse_tpu.ops.topk import exact_top_k
-    rng = np.random.default_rng(5)
-    s = rng.standard_normal((9, 1500)).astype(np.float32)
-    vs, vi = exact_top_k(jnp.asarray(s), 12, group=256)
-    expect = np.argsort(-s, axis=1, kind="stable")[:, :12]
-    np.testing.assert_array_equal(np.asarray(vi), expect)
 
 
 def test_top_product_rejects_negative_exclude():
@@ -216,6 +205,34 @@ def test_tournament_all_equal_scores():
     np.testing.assert_array_equal(np.asarray(ti),
                                   np.tile(np.arange(6), (3, 1)))
     np.testing.assert_allclose(np.asarray(ts), 2.5)
+
+
+@pytest.mark.gpu
+def test_masked_top_k_bits_on_gpu_vs_oracle(gpu):
+    """On the card, at the smoke run's catalog width: the packed-bitmask
+    tournament agrees with a dense oracle, ties go to the lowest index and
+    a row with fewer than k live items still returns distinct indices."""
+    import jax.numpy as jnp
+    from rsparse_tpu.ops.topk import NEG_INF, masked_top_k_bits
+
+    rng = np.random.default_rng(6)
+    n, k = 26_880, 10
+    s = rng.standard_normal((64, n)).astype(np.float32)
+    s[1] = 2.5                                  # all-equal row
+    mask = rng.random((64, n)) < 0.01
+    mask[2] = True
+    mask[2, [7, 900, 20_000]] = False           # 3 live items < k
+    bits = np.packbits(mask, axis=1, bitorder="little")
+    ts, ti = masked_top_k_bits(jnp.asarray(s), jnp.asarray(bits), k)
+    ts, ti = np.asarray(ts), np.asarray(ti)
+    dense = np.where(mask, -np.inf, s)
+    expect = np.argsort(-dense, axis=1, kind="stable")[:, :k]
+    rows = [r for r in range(64) if r != 2]
+    np.testing.assert_array_equal(ti[rows], expect[rows])
+    np.testing.assert_array_equal(ti[1], np.arange(k))
+    np.testing.assert_array_equal(ti[2, :3], expect[2, :3])
+    assert len(set(ti[2].tolist())) == k
+    assert (ts[2, 3:] == NEG_INF).all()
 
 
 def test_masked_bits_duplicate_values_across_groups():
